@@ -80,16 +80,19 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    from learningagileflight_se3.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from learningagileflight_se3_tpu.config import Variant, preset
-    from learningagileflight_se3_tpu.models.sampler import (
+    from learningagileflight_se3.config import Variant, preset
+    from learningagileflight_se3.models.sampler import (
         sample_scenarios,
         scenario_to_problem,
     )
-    from learningagileflight_se3_tpu.oracle import solve_lifted_oracle
-    from learningagileflight_se3_tpu.solver.ilqr import make_mpc_solver
+    from learningagileflight_se3.oracle import solve_lifted_oracle
+    from learningagileflight_se3.solver.ilqr import make_mpc_solver
 
     rows = []
     for variant in (Variant.MAIN, Variant.PYBULLET):

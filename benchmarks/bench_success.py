@@ -12,6 +12,8 @@ Prints ONE JSON line:
   {"metric": "closed_loop_success_rate", "value": ..., "unit": "frac",
    "n_scenarios": N, "mean_margin_m": ..., "mean_final_dist_m": ...}
 
+The JSON names the device and, on a GPU, the card's name and power limit.
+
 Usage:
   python benchmarks/bench_success.py                     # artifacts/nn3_1
   python benchmarks/bench_success.py --ckpt runs/x/nn3_1 --n 128
@@ -37,7 +39,7 @@ def log(*a):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt", default="artifacts/nn3_1",
-                    help="orbax checkpoint dir of the trained DNN2 params")
+                    help="checkpoint (.npz) of the trained DNN2 params")
     ap.add_argument("--n", type=int, default=128, help="number of scenarios")
     ap.add_argument("--steps", type=int, default=500)
     ap.add_argument("--seed", type=int, default=2024)
@@ -54,7 +56,8 @@ def main():
                     help="re-simulate the K worst scenarios (by final goal "
                          "distance) with full traces and emit per-scenario "
                          "diagnostics naming the tail mechanism")
-    ap.add_argument("--platform", default=None)
+    ap.add_argument("--platform", default=None,
+                    help="force a JAX platform, e.g. cpu (default: JAX's)")
     args = ap.parse_args()
 
     import jax
@@ -63,19 +66,24 @@ def main():
         jax.config.update("jax_platforms", args.platform)
     import jax.numpy as jnp
 
-    from learningagileflight_se3_tpu.config import (
+    from learningagileflight_se3.utils.compile_cache import enable_compile_cache
+    from learningagileflight_se3.utils.device import describe_device
+
+    enable_compile_cache()
+
+    from learningagileflight_se3.config import (
         CostWeights,
         GateMotionConfig,
         QuadParams,
         SolverConfig,
     )
-    from learningagileflight_se3_tpu.models.mlp import make_dnn2
-    from learningagileflight_se3_tpu.models.sampler import sample_scenarios
-    from learningagileflight_se3_tpu.sim.closed_loop import (
+    from learningagileflight_se3.models.mlp import make_dnn2
+    from learningagileflight_se3.models.sampler import sample_scenarios
+    from learningagileflight_se3.sim.closed_loop import (
         evaluate_closed_loop_full,
         make_closed_loop_sim,
     )
-    from learningagileflight_se3_tpu.utils.checkpoint import load_params
+    from learningagileflight_se3.utils.checkpoint import load_params
 
     model2 = make_dnn2()
     like = model2.init(jax.random.PRNGKey(0), jnp.zeros((1, 18)))
@@ -163,6 +171,7 @@ def main():
         "ckpt": args.ckpt,
         "seed": int(args.seed),
         "platform": jax.default_backend(),
+        "device": describe_device(),
     }
 
     # -------- per-scenario tail diagnosis (VERDICT r4 weak #6) ------------

@@ -40,8 +40,11 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    from learningagileflight_se3.utils.compile_cache import enable_compile_cache
 
-    from learningagileflight_se3_tpu.parallel.distributed import (
+    enable_compile_cache()
+
+    from learningagileflight_se3.parallel.distributed import (
         global_batch_from_host,
         initialize_distributed,
     )
@@ -59,14 +62,14 @@ def main():
     import jax.numpy as jnp
     from jax.experimental import multihost_utils
 
-    from learningagileflight_se3_tpu.config import (
+    from learningagileflight_se3.config import (
         CostWeights, QuadParams, SolverConfig,
     )
-    from learningagileflight_se3_tpu.models.sampler import (
+    from learningagileflight_se3.models.sampler import (
         sample_scenarios, scenario_to_problem,
     )
-    from learningagileflight_se3_tpu.parallel.mesh import make_mesh
-    from learningagileflight_se3_tpu.solver.ilqr import make_batched_mpc_solver
+    from learningagileflight_se3.parallel.mesh import make_mesh
+    from learningagileflight_se3.solver.ilqr import make_batched_mpc_solver
 
     mesh = make_mesh()
     cfg = SolverConfig(horizon=horizon, max_iters=iters, tol=1e-4, gtol=3e-4)
@@ -79,11 +82,11 @@ def main():
         # analytic learning signal + psum gradient reduction + optax update
         # (train/rl.py make_rl_train_step — deep_learning.py:66-83's role)
         import optax
-        from learningagileflight_se3_tpu.config import (
+        from learningagileflight_se3.config import (
             LearnedGradConfig, RewardConfig,
         )
-        from learningagileflight_se3_tpu.models.mlp import make_dnn1
-        from learningagileflight_se3_tpu.train.rl import make_rl_train_step
+        from learningagileflight_se3.models.mlp import make_dnn1
+        from learningagileflight_se3.train.rl import make_rl_train_step
 
         model = make_dnn1()
         nn_params = model.init(jax.random.PRNGKey(1), jnp.zeros((1, 9)))
@@ -107,7 +110,7 @@ def main():
         rate_key = "steps_per_sec"
     else:
         solve = jax.jit(make_batched_mpc_solver(
-            QuadParams(), CostWeights(), cfg, backend="xla"))
+            QuadParams(), CostWeights(), cfg))
         probs = jax.jit(jax.vmap(scenario_to_problem))(scen_g)
         # every sharded input goes through the same host->global path
         # (make_array_from_callback handles the multi-process case)

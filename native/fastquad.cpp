@@ -1,8 +1,8 @@
-// fastquad: native host-side runtime for LearningAgileFlight-SE3-TPU.
+// fastquad: native host-side runtime for LearningAgileFlight-SE3.
 //
 // The reference relies on native code for everything hot (IPOPT's C++
 // interior point, CasADi's C++ AD, PyBullet physics).  In this framework the
-// TPU owns the compute path; this library owns the HOST side:
+// accelerator owns the compute path; this library owns the HOST side:
 //   * a high-throughput scenario sampler (the quad_nn.py:18-48 distribution,
 //     xoshiro256++ PRNG) for feeding training without Python overhead,
 //   * a float64 Euler plant (quad_model.py:106-119,215-219 semantics:
@@ -13,7 +13,7 @@
 //
 // Pure C API over double arrays; no external dependencies. Built by
 // native/Makefile into libfastquad.so, loaded via ctypes
-// (learningagileflight_se3_tpu/native.py).
+// (learningagileflight_se3/native.py).
 
 #include <cmath>
 #include <cstdint>

@@ -31,7 +31,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dnn1", required=True, help="orbax dir of the RL'd DNN1")
+    ap.add_argument("--dnn1", required=True, help="checkpoint (.npz) of the RL'd DNN1")
     ap.add_argument("--epochs", type=int, default=300)
     ap.add_argument("--batch-scenarios", type=int, default=64)
     ap.add_argument("--sgd-passes", type=int, default=10)
@@ -51,16 +51,16 @@ def main():
         jax.config.update("jax_platforms", args.platform)
     import jax.numpy as jnp
 
-    from learningagileflight_se3_tpu.config import (
+    from learningagileflight_se3.config import (
         CostWeights, QuadParams, SamplerConfig, SolverConfig,
     )
-    from learningagileflight_se3_tpu.models.mlp import make_dnn1
-    from learningagileflight_se3_tpu.models.sampler import sample_scenarios
-    from learningagileflight_se3_tpu.sim.closed_loop import (
+    from learningagileflight_se3.models.mlp import make_dnn1
+    from learningagileflight_se3.models.sampler import sample_scenarios
+    from learningagileflight_se3.sim.closed_loop import (
         evaluate_closed_loop, make_closed_loop_sim,
     )
-    from learningagileflight_se3_tpu.train.imitation import run_imitation_training
-    from learningagileflight_se3_tpu.utils.checkpoint import load_params, save_params
+    from learningagileflight_se3.train.imitation import run_imitation_training
+    from learningagileflight_se3.utils.checkpoint import load_params, save_params
 
     os.makedirs(args.out, exist_ok=True)
     on_cpu = jax.default_backend() == "cpu"

@@ -2,7 +2,7 @@
 
 Round-3 BENCH: converged_frac 0.3955 at mean 45.1/50 iters, yet median cost
 excess vs golden 1.1e-7 and 95.4% of lanes within 1% — i.e. most lanes look
-optimal but never trip the `done` flag.  This script answers, on real TPU:
+optimal but never trip the `done` flag.  This script answers, on the device:
 
   1. For lanes NOT done at the cap: how far are they actually from the
      (uncapped-golden) optimum, and what are their pg/(|J|+1) and
@@ -36,15 +36,15 @@ def main():
     ap.add_argument("--iters", type=int, default=50)
     args = ap.parse_args()
 
-    from learningagileflight_se3_tpu.config import (
+    from learningagileflight_se3.config import (
         CostWeights, QuadParams, SolverConfig,
     )
-    from learningagileflight_se3_tpu.models.mlp import make_dnn1
-    from learningagileflight_se3_tpu.models.sampler import (
+    from learningagileflight_se3.models.mlp import make_dnn1
+    from learningagileflight_se3.models.sampler import (
         sample_scenarios, scenario_to_problem,
     )
-    from learningagileflight_se3_tpu.solver.ilqr import make_batched_mpc_solver
-    from learningagileflight_se3_tpu.utils.checkpoint import load_params
+    from learningagileflight_se3.solver.ilqr import make_batched_mpc_solver
+    from learningagileflight_se3.utils.checkpoint import load_params
 
     print(f"device {jax.devices()[0]}", flush=True)
     params_q, weights = QuadParams(), CostWeights()

@@ -31,12 +31,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from learningagileflight_se3_tpu.config import (
+    from learningagileflight_se3.config import (
         CostWeights, QuadParams, SamplerConfig, SolverConfig,
     )
-    from learningagileflight_se3_tpu.models.mlp import make_dnn1
-    from learningagileflight_se3_tpu.train.imitation import run_imitation_training
-    from learningagileflight_se3_tpu.utils.checkpoint import load_params, save_params
+    from learningagileflight_se3.models.mlp import make_dnn1
+    from learningagileflight_se3.train.imitation import run_imitation_training
+    from learningagileflight_se3.utils.checkpoint import load_params, save_params
 
     on_cpu = jax.default_backend() == "cpu"
     solver_cfg = SolverConfig(

@@ -13,11 +13,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from learningagileflight_se3_tpu.config import CostWeights, QuadParams, SolverConfig
-from learningagileflight_se3_tpu.models.sampler import (
+from learningagileflight_se3.config import CostWeights, QuadParams, SolverConfig
+from learningagileflight_se3.models.sampler import (
     sample_scenarios, scenario_to_problem,
 )
-from learningagileflight_se3_tpu.solver.ilqr import make_batched_mpc_solver
+from learningagileflight_se3.solver.ilqr import make_batched_mpc_solver
 
 
 def main():
@@ -65,7 +65,6 @@ def main():
         print(f"trips{trips} cap{cap} W{W:2d}: {el:.3f}s ({B/el:6.0f} sps) "
               f"conv {float(np.asarray(sol.converged).mean()):.3f} "
               f"iters {float(np.asarray(sol.iterations).mean()):4.1f} "
-              f"ls {int(sol.ls_evals):3d} "
               f"ex med {np.median(ex):.1e} q90 {np.percentile(ex,90):.1e} "
               f"q99 {np.percentile(ex,99):.1e} "
               f"f<1e-3 {(ex<1e-3).mean():.3f} f<1% {(ex<0.01).mean():.3f}",

@@ -11,10 +11,10 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from learningagileflight_se3_tpu.config import QuadParams, CostWeights, SolverConfig
-from learningagileflight_se3_tpu.core.rotations import axis_angle_to_quat
-from learningagileflight_se3_tpu.solver.ilqr import make_mpc_solver
-from learningagileflight_se3_tpu.oracle.shooting import solve_shooting_oracle
+from learningagileflight_se3.config import QuadParams, CostWeights, SolverConfig
+from learningagileflight_se3.core.rotations import axis_angle_to_quat
+from learningagileflight_se3.solver.ilqr import make_mpc_solver
+from learningagileflight_se3.oracle.shooting import solve_shooting_oracle
 
 params, weights = QuadParams(), CostWeights()
 cfg = SolverConfig(horizon=50, max_iters=300)
@@ -52,9 +52,9 @@ print("u[0] ilqr ", np.asarray(sol.control_traj)[0])
 print("u[0] oracle", U[0])
 
 # --- projected-gradient (KKT) residual check ---
-from learningagileflight_se3_tpu.costs.gate_costs import total_trajectory_cost
-from learningagileflight_se3_tpu.dynamics.quadrotor import rollout
-from learningagileflight_se3_tpu.core.rotations import rodrigues_to_quat
+from learningagileflight_se3.costs.gate_costs import total_trajectory_cost
+from learningagileflight_se3.dynamics.quadrotor import rollout
+from learningagileflight_se3.core.rotations import rodrigues_to_quat
 
 tq = rodrigues_to_quat(jnp.asarray(tra_ang, jnp.float64))
 def obj(Uf):

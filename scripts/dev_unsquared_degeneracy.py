@@ -55,12 +55,12 @@ def main():
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from learningagileflight_se3_tpu.config import Variant, preset
-    from learningagileflight_se3_tpu.models.sampler import (
+    from learningagileflight_se3.config import Variant, preset
+    from learningagileflight_se3.models.sampler import (
         sample_scenarios,
         scenario_to_problem,
     )
-    from learningagileflight_se3_tpu.solver.ilqr import make_mpc_solver
+    from learningagileflight_se3.solver.ilqr import make_mpc_solver
 
     pp, wp, cp, _, sp, _ = preset(Variant.PYBULLET)
     assert not wp.squared_attitude

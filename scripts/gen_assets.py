@@ -32,14 +32,14 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from learningagileflight_se3_tpu.config import QuadParams
-from learningagileflight_se3_tpu.utils.mesh import (
+from learningagileflight_se3.config import QuadParams
+from learningagileflight_se3.utils.mesh import (
     QUAD_MTL,
     WINDOW_MTL,
     quad_obj,
     window_obj,
 )
-from learningagileflight_se3_tpu.utils.urdf import (  # noqa: F401 (re-export)
+from learningagileflight_se3.utils.urdf import (  # noqa: F401 (re-export)
     KF,
     quad_urdf,
     window_urdf,

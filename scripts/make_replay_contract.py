@@ -29,21 +29,21 @@ jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp  # noqa: E402
 
-from learningagileflight_se3_tpu.config import QuadParams, SolverConfig, Variant  # noqa: E402
-from learningagileflight_se3_tpu.geometry.gate import gate_from_width, gate_move  # noqa: E402
-from learningagileflight_se3_tpu.models.mlp import make_dnn2  # noqa: E402
-from learningagileflight_se3_tpu.sim.external_controller import (  # noqa: E402
+from learningagileflight_se3.config import QuadParams, SolverConfig, Variant  # noqa: E402
+from learningagileflight_se3.geometry.gate import gate_from_width, gate_move  # noqa: E402
+from learningagileflight_se3.models.mlp import make_dnn2  # noqa: E402
+from learningagileflight_se3.sim.external_controller import (  # noqa: E402
     ExternalSimController,
 )
-from learningagileflight_se3_tpu.sim.validation_env import (  # noqa: E402
+from learningagileflight_se3.sim.validation_env import (  # noqa: E402
     ValidationEnv,
     ValidationEnvConfig,
 )
-from learningagileflight_se3_tpu.sim.validation_sim import (  # noqa: E402
+from learningagileflight_se3.sim.validation_sim import (  # noqa: E402
     ValidationSimConfig,
     sample_validation_scenario,
 )
-from learningagileflight_se3_tpu.utils.checkpoint import load_params  # noqa: E402
+from learningagileflight_se3.utils.checkpoint import load_params  # noqa: E402
 
 # The contract's solver budget is smaller than deployment: the contract
 # pins the ADAPTER pipeline, not the deployed solve budget, and must replay

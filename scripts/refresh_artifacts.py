@@ -37,16 +37,16 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from learningagileflight_se3_tpu.config import (
+    from learningagileflight_se3.config import (
         CostWeights, QuadParams, SolverConfig,
     )
-    from learningagileflight_se3_tpu.models.mlp import make_dnn2
-    from learningagileflight_se3_tpu.models.sampler import sample_scenarios
-    from learningagileflight_se3_tpu.sim import plotting
-    from learningagileflight_se3_tpu.sim.closed_loop import (
+    from learningagileflight_se3.models.mlp import make_dnn2
+    from learningagileflight_se3.models.sampler import sample_scenarios
+    from learningagileflight_se3.sim import plotting
+    from learningagileflight_se3.sim.closed_loop import (
         evaluate_closed_loop_full, make_closed_loop_sim,
     )
-    from learningagileflight_se3_tpu.utils.checkpoint import load_params
+    from learningagileflight_se3.utils.checkpoint import load_params
 
     out = args.out
     # ---- checkpoints + curves ----

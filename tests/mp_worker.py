@@ -25,7 +25,7 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
-    from learningagileflight_se3_tpu.parallel.distributed import (
+    from learningagileflight_se3.parallel.distributed import (
         global_batch_from_host,
         initialize_distributed,
     )
@@ -45,17 +45,17 @@ def main():
     import jax.numpy as jnp
     import optax
 
-    from learningagileflight_se3_tpu.config import (
+    from learningagileflight_se3.config import (
         CostWeights,
         QuadParams,
         RewardConfig,
         SamplerConfig,
         SolverConfig,
     )
-    from learningagileflight_se3_tpu.models.mlp import make_dnn1
-    from learningagileflight_se3_tpu.models.sampler import sample_scenarios
-    from learningagileflight_se3_tpu.parallel.mesh import make_mesh, replicate
-    from learningagileflight_se3_tpu.train.rl import make_rl_train_step
+    from learningagileflight_se3.models.mlp import make_dnn1
+    from learningagileflight_se3.models.sampler import sample_scenarios
+    from learningagileflight_se3.parallel.mesh import make_mesh, replicate
+    from learningagileflight_se3.train.rl import make_rl_train_step
 
     mesh = make_mesh()  # global: all 8 devices across both processes
     model = make_dnn1()

@@ -7,10 +7,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from learningagileflight_se3_tpu.config import CostWeights, QuadParams, SolverConfig
-from learningagileflight_se3_tpu.core.rotations import rodrigues_to_quat
-from learningagileflight_se3_tpu.solver import ilqr as M
-from learningagileflight_se3_tpu.solver.analytic import (
+from learningagileflight_se3.config import CostWeights, QuadParams, SolverConfig
+from learningagileflight_se3.core.rotations import rodrigues_to_quat
+from learningagileflight_se3.solver import ilqr as M
+from learningagileflight_se3.solver.analytic import (
     DynamicsTaylor,
     attitude_curvature,
     make_cost_quadratics,
@@ -61,7 +61,7 @@ class TestDynamicsTaylor:
 
 class TestAttitudeCurvature:
     def test_matches_hessian(self, rng):
-        from learningagileflight_se3_tpu.costs.gate_costs import attitude_error
+        from learningagileflight_se3.costs.gate_costs import attitude_error
 
         for _ in range(5):
             tq = rodrigues_to_quat(jnp.asarray(rng.normal(size=3) * 0.5))
@@ -143,7 +143,7 @@ class TestExplicitForms:
     """The sparse closed-form Jacobians/H2 must equal the dense Taylor path."""
 
     def test_explicit_jacobians(self, rng):
-        from learningagileflight_se3_tpu.solver.analytic import explicit_jacobians
+        from learningagileflight_se3.solver.analytic import explicit_jacobians
 
         dyn = DynamicsTaylor(PQ, DT)
         ZU = jnp.asarray(rand_zu(rng, 10))
@@ -153,7 +153,7 @@ class TestExplicitForms:
         np.testing.assert_allclose(np.asarray(B2), np.asarray(B1), atol=1e-10)
 
     def test_explicit_h2(self, rng):
-        from learningagileflight_se3_tpu.solver.analytic import explicit_h2
+        from learningagileflight_se3.solver.analytic import explicit_h2
 
         dyn = DynamicsTaylor(PQ, DT)
         ZU = jnp.asarray(rand_zu(rng, 6))

@@ -17,10 +17,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from learningagileflight_se3_tpu.config import SolverConfig
-from learningagileflight_se3_tpu.models.mlp import make_dnn1, make_dnn2
-from learningagileflight_se3_tpu.models.sampler import sample_scenarios
-from learningagileflight_se3_tpu.utils.checkpoint import load_params
+from learningagileflight_se3.config import SolverConfig
+from learningagileflight_se3.models.mlp import make_dnn1, make_dnn2
+from learningagileflight_se3.models.sampler import sample_scenarios
+from learningagileflight_se3.utils.checkpoint import load_params
 
 ART = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "artifacts")
@@ -63,8 +63,8 @@ class TestCommittedArtifacts:
     def test_committed_dnn2_flies_closed_loop(self):
         """Load the committed DNN2 and fly 2 fresh scenarios end-to-end
         (500-step moving-gate sim); at least one must traverse the gate.
-        (TPU-scale evidence: artifacts/bench_success.json, 96.1% of 128.)"""
-        from learningagileflight_se3_tpu.sim.closed_loop import (
+        (Full-scale evidence: artifacts/bench_success.json, 128 flights.)"""
+        from learningagileflight_se3.sim.closed_loop import (
             evaluate_closed_loop,
             make_closed_loop_sim,
         )

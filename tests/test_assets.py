@@ -15,8 +15,8 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from learningagileflight_se3_tpu.config import QuadParams
-from learningagileflight_se3_tpu.utils.mesh import parse_obj, quad_obj, window_obj
+from learningagileflight_se3.config import QuadParams
+from learningagileflight_se3.utils.mesh import parse_obj, quad_obj, window_obj
 from scripts.gen_assets import quad_urdf, window_urdf
 
 

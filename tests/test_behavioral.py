@@ -17,13 +17,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from learningagileflight_se3_tpu.config import (
+from learningagileflight_se3.config import (
     CostWeights,
     GateMotionConfig,
     QuadParams,
     SolverConfig,
 )
-from learningagileflight_se3_tpu.sim.closed_loop import (
+from learningagileflight_se3.sim.closed_loop import (
     evaluate_closed_loop,
     make_closed_loop_sim,
 )
@@ -107,8 +107,8 @@ class TestEvaluateClosedLoopDirections:
         21-26) while the window normal ay points +y: a crossing must be
         detected regardless of direction (regression: r1 only counted
         + -> - crossings, so every real traversal scored False)."""
-        from learningagileflight_se3_tpu.geometry.gate import gate_from_width
-        from learningagileflight_se3_tpu.sim.closed_loop import ClosedLoopLog
+        from learningagileflight_se3.geometry.gate import gate_from_width
+        from learningagileflight_se3.sim.closed_loop import ClosedLoopLog
 
         N = 60
         pts = np.asarray(gate_from_width(jnp.asarray(1.0)))
@@ -142,8 +142,8 @@ class TestEvaluateClosedLoopDirections:
     def test_nonfinite_states_never_traverse(self):
         """A diverged sim (NaN states) must score traversed=False, not
         crash or return a spurious crossing."""
-        from learningagileflight_se3_tpu.geometry.gate import gate_from_width
-        from learningagileflight_se3_tpu.sim.closed_loop import ClosedLoopLog
+        from learningagileflight_se3.geometry.gate import gate_from_width
+        from learningagileflight_se3.sim.closed_loop import ClosedLoopLog
 
         N = 20
         pts = np.asarray(gate_from_width(jnp.asarray(1.0)))

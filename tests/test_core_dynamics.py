@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import pytest
 from scipy.spatial.transform import Rotation as R
 
-from learningagileflight_se3_tpu.config import QuadParams
-from learningagileflight_se3_tpu.core.rotations import (
+from learningagileflight_se3.config import QuadParams
+from learningagileflight_se3.core.rotations import (
     axis_angle_to_quat,
     dcm_to_quat,
     omega_matrix,
@@ -19,7 +19,7 @@ from learningagileflight_se3_tpu.core.rotations import (
     rodrigues_to_quat,
     skew,
 )
-from learningagileflight_se3_tpu.dynamics.quadrotor import (
+from learningagileflight_se3.dynamics.quadrotor import (
     euler_step,
     mixer_matrix,
     quad_ode,
@@ -27,7 +27,7 @@ from learningagileflight_se3_tpu.dynamics.quadrotor import (
     rotor_positions,
     thrust_torque,
 )
-from learningagileflight_se3_tpu.oracle.numpy_reference import (
+from learningagileflight_se3.oracle.numpy_reference import (
     np_euler_step,
     np_quad_ode,
     np_rollout,

@@ -7,27 +7,27 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from learningagileflight_se3_tpu.config import (
+from learningagileflight_se3.config import (
     CostWeights,
     LearnedGradConfig,
     QuadParams,
     RewardConfig,
     SolverConfig,
 )
-from learningagileflight_se3_tpu.core.rotations import rodrigues_to_quat
-from learningagileflight_se3_tpu.costs.gate_costs import (
+from learningagileflight_se3.core.rotations import rodrigues_to_quat
+from learningagileflight_se3.costs.gate_costs import (
     final_cost,
     goal_cost,
     traversal_cost,
 )
-from learningagileflight_se3_tpu.dynamics.quadrotor import euler_step
-from learningagileflight_se3_tpu.geometry.gate import gate_from_width
-from learningagileflight_se3_tpu.policy import (
+from learningagileflight_se3.dynamics.quadrotor import euler_step
+from learningagileflight_se3.geometry.gate import gate_from_width
+from learningagileflight_se3.policy import (
     make_lsfd_search,
     make_policy_search,
 )
-from learningagileflight_se3_tpu.solver.costate import make_costate_extractor
-from learningagileflight_se3_tpu.solver.ilqr import make_mpc_solver
+from learningagileflight_se3.solver.costate import make_costate_extractor
+from learningagileflight_se3.solver.ilqr import make_mpc_solver
 
 PARAMS = QuadParams()
 WEIGHTS = CostWeights()

@@ -4,14 +4,14 @@
 import numpy as np
 import jax.numpy as jnp
 
-from learningagileflight_se3_tpu.config import CostWeights, QuadParams, Variant, preset
-from learningagileflight_se3_tpu.core.rotations import rodrigues_to_quat
-from learningagileflight_se3_tpu.costs.gate_costs import (
+from learningagileflight_se3.config import CostWeights, QuadParams, Variant, preset
+from learningagileflight_se3.core.rotations import rodrigues_to_quat
+from learningagileflight_se3.costs.gate_costs import (
     total_trajectory_cost,
     traversal_weight,
 )
-from learningagileflight_se3_tpu.dynamics.quadrotor import rollout
-from learningagileflight_se3_tpu.oracle.numpy_reference import np_total_cost
+from learningagileflight_se3.dynamics.quadrotor import rollout
+from learningagileflight_se3.oracle.numpy_reference import np_total_cost
 
 
 def _random_problem(rng, H=12):

@@ -8,20 +8,20 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from learningagileflight_se3_tpu.config import (
+from learningagileflight_se3.config import (
     CostWeights,
     LearnedGradConfig,
     QuadParams,
     RewardConfig,
     SolverConfig,
 )
-from learningagileflight_se3_tpu.core.rotations import axis_angle_to_quat
-from learningagileflight_se3_tpu.geometry.gate import gate_from_width, rotate_y
-from learningagileflight_se3_tpu.policy import (
+from learningagileflight_se3.core.rotations import axis_angle_to_quat
+from learningagileflight_se3.geometry.gate import gate_from_width, rotate_y
+from learningagileflight_se3.policy import (
     make_fd_gradient,
     make_objective,
 )
-from learningagileflight_se3_tpu.solver.diff import make_differentiable_control_solver
+from learningagileflight_se3.solver.diff import make_differentiable_control_solver
 
 PARAMS = QuadParams()
 WEIGHTS = CostWeights()

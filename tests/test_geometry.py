@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import pytest
 from scipy.spatial.transform import Rotation as R
 
-from learningagileflight_se3_tpu.config import RewardConfig
-from learningagileflight_se3_tpu.geometry.collision import (
+from learningagileflight_se3.config import RewardConfig
+from learningagileflight_se3.geometry.collision import (
     collision_score,
     trajectory_reward,
 )
-from learningagileflight_se3_tpu.geometry.gate import (
+from learningagileflight_se3.geometry.gate import (
     final_to_window,
     gate_centroid,
     gate_frame,

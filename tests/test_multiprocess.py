@@ -32,18 +32,18 @@ def _single_process_reference():
     """The identical step on this process's 8 virtual devices."""
     import optax
 
-    from learningagileflight_se3_tpu.config import (
+    from learningagileflight_se3.config import (
         CostWeights,
         QuadParams,
         RewardConfig,
         SamplerConfig,
         SolverConfig,
     )
-    from learningagileflight_se3_tpu.models.mlp import make_dnn1
-    from learningagileflight_se3_tpu.models.sampler import sample_scenarios
-    from learningagileflight_se3_tpu.parallel.distributed import global_batch_from_host
-    from learningagileflight_se3_tpu.parallel.mesh import make_mesh, replicate
-    from learningagileflight_se3_tpu.train.rl import make_rl_train_step
+    from learningagileflight_se3.models.mlp import make_dnn1
+    from learningagileflight_se3.models.sampler import sample_scenarios
+    from learningagileflight_se3.parallel.distributed import global_batch_from_host
+    from learningagileflight_se3.parallel.mesh import make_mesh, replicate
+    from learningagileflight_se3.train.rl import make_rl_train_step
 
     mesh = make_mesh()
     model = make_dnn1()

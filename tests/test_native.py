@@ -6,14 +6,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from learningagileflight_se3_tpu import native
-from learningagileflight_se3_tpu.config import QuadParams, RewardConfig
-from learningagileflight_se3_tpu.geometry.collision import (
+from learningagileflight_se3 import native
+from learningagileflight_se3.config import QuadParams, RewardConfig
+from learningagileflight_se3.geometry.collision import (
     collision_score as jx_collision,
     trajectory_reward as jx_reward,
 )
-from learningagileflight_se3_tpu.geometry.gate import gate_from_width, rotate_y
-from learningagileflight_se3_tpu.oracle.numpy_reference import np_rollout
+from learningagileflight_se3.geometry.gate import gate_from_width, rotate_y
+from learningagileflight_se3.oracle.numpy_reference import np_rollout
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="no C++ toolchain / libfastquad build failed"
@@ -36,7 +36,7 @@ class TestNativePlant:
         x = rng.normal(size=13)
         x[6:10] /= np.linalg.norm(x[6:10])
         u = rng.uniform(0, 2.44, size=4)
-        from learningagileflight_se3_tpu.oracle.numpy_reference import np_euler_step
+        from learningagileflight_se3.oracle.numpy_reference import np_euler_step
 
         np.testing.assert_allclose(
             native.euler_step(x, u, 0.01, PQ), np_euler_step(x, u, 0.01, PQ), atol=1e-13

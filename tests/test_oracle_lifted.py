@@ -22,11 +22,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from learningagileflight_se3_tpu.config import CostWeights, QuadParams, SolverConfig
-from learningagileflight_se3_tpu.core.rotations import axis_angle_to_quat
-from learningagileflight_se3_tpu.oracle import solve_lifted_oracle
-from learningagileflight_se3_tpu.solver.constrained import make_w_bounded_solver
-from learningagileflight_se3_tpu.solver.ilqr import make_mpc_solver
+from learningagileflight_se3.config import CostWeights, QuadParams, SolverConfig
+from learningagileflight_se3.core.rotations import axis_angle_to_quat
+from learningagileflight_se3.oracle import solve_lifted_oracle
+from learningagileflight_se3.solver.constrained import make_w_bounded_solver
+from learningagileflight_se3.solver.ilqr import make_mpc_solver
 
 PARAMS = QuadParams()
 WEIGHTS = CostWeights()

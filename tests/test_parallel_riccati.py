@@ -8,9 +8,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from learningagileflight_se3_tpu.config import CostWeights, QuadParams, SolverConfig
-from learningagileflight_se3_tpu.models.sampler import sample_scenarios, scenario_to_problem
-from learningagileflight_se3_tpu.solver.ilqr import make_mpc_solver
+from learningagileflight_se3.config import CostWeights, QuadParams, SolverConfig
+from learningagileflight_se3.models.sampler import sample_scenarios, scenario_to_problem
+from learningagileflight_se3.solver.ilqr import make_mpc_solver
 
 PQ = QuadParams()
 CW = CostWeights()
@@ -75,7 +75,7 @@ class TestParallelRiccati:
 
     @pytest.mark.slow
     def test_f32_full_solve_comparable_cost(self):
-        """float32 — the TPU dtype this small-batch-latency path exists for.
+        """float32 — the accelerator dtype this small-batch-latency path exists for.
         The associative-scan value-map compositions are worse-conditioned
         than the sequential sweep in f32 (a single sweep's controls can
         differ by O(0.1)); the contract that matters is that the full

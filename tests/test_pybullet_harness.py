@@ -22,10 +22,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from learningagileflight_se3_tpu.config import QuadParams, SolverConfig, Variant
-from learningagileflight_se3_tpu.models.mlp import make_dnn2
-from learningagileflight_se3_tpu.sim.external_controller import ExternalSimController
-from learningagileflight_se3_tpu.utils.checkpoint import load_params
+from learningagileflight_se3.config import QuadParams, SolverConfig, Variant
+from learningagileflight_se3.models.mlp import make_dnn2
+from learningagileflight_se3.sim.external_controller import ExternalSimController
+from learningagileflight_se3.utils.checkpoint import load_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONTRACT = os.path.join(REPO, "artifacts", "replay_contract.npz")
@@ -99,10 +99,10 @@ class TestGatePose:
     everywhere (no pybullet needed)."""
 
     def test_corner_roundtrip(self):
-        from learningagileflight_se3_tpu.geometry.gate import (
+        from learningagileflight_se3.geometry.gate import (
             gate_from_width, rotate_y, translate,
         )
-        from learningagileflight_se3_tpu.sim.pybullet_harness import (
+        from learningagileflight_se3.sim.pybullet_harness import (
             _corners_to_pose,
         )
 
@@ -129,10 +129,10 @@ class TestGatePose:
 class TestPyBulletLive:
     def test_pybullet_live(self, nn2_params):
         pytest.importorskip("pybullet")
-        from learningagileflight_se3_tpu.sim.pybullet_harness import (
+        from learningagileflight_se3.sim.pybullet_harness import (
             run_pybullet_sim,
         )
-        from learningagileflight_se3_tpu.sim.validation_sim import (
+        from learningagileflight_se3.sim.validation_sim import (
             ValidationSimConfig,
         )
 
@@ -163,7 +163,7 @@ class TestPyBulletLive:
         sim without pybullet must raise a clear ImportError."""
         import importlib.util
 
-        from learningagileflight_se3_tpu.sim import pybullet_harness
+        from learningagileflight_se3.sim import pybullet_harness
 
         if importlib.util.find_spec("pybullet") is None:
             with pytest.raises(ImportError, match="pybullet"):

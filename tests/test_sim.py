@@ -9,17 +9,17 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from learningagileflight_se3_tpu.config import (
+from learningagileflight_se3.config import (
     CostWeights,
     GateMotionConfig,
     QuadParams,
     SolverConfig,
 )
-from learningagileflight_se3_tpu.geometry.gate import gate_from_width, rotate_y
-from learningagileflight_se3_tpu.models.mlp import make_dnn2
-from learningagileflight_se3_tpu.oracle.numpy_reference import np_euler_step
-from learningagileflight_se3_tpu.sim.closed_loop import make_closed_loop_sim
-from learningagileflight_se3_tpu.sim.tsolver import make_traversal_time_solver
+from learningagileflight_se3.geometry.gate import gate_from_width, rotate_y
+from learningagileflight_se3.models.mlp import make_dnn2
+from learningagileflight_se3.oracle.numpy_reference import np_euler_step
+from learningagileflight_se3.sim.closed_loop import make_closed_loop_sim
+from learningagileflight_se3.sim.tsolver import make_traversal_time_solver
 
 
 def _dnn2_with_params(key):
@@ -42,7 +42,7 @@ class TestTraversalTimeSolver:
     def test_fixed_point_property(self):
         """At the returned t, the DNN2 prediction at the predicted gate pose
         is within tol of t (quad_moving.py:45)."""
-        from learningagileflight_se3_tpu.geometry.gate import (
+        from learningagileflight_se3.geometry.gate import (
             rotate_y as ry, translate, window_inputs,
         )
 
@@ -63,7 +63,7 @@ class TestTraversalTimeSolver:
         """accel='secant' (the deployed 10 Hz tick path) must satisfy the
         SAME fixed-point property |DNN2_t(t) - t| <= tol as the reference's
         averaging iteration, and land at (numerically) the same point."""
-        from learningagileflight_se3_tpu.geometry.gate import (
+        from learningagileflight_se3.geometry.gate import (
             rotate_y as ry, translate, window_inputs,
         )
 
@@ -158,8 +158,8 @@ class TestExternalController:
         thrust/torque commands."""
         from scipy.spatial.transform import Rotation as R
 
-        from learningagileflight_se3_tpu.geometry.gate import gate_from_width, rotate_y as ry
-        from learningagileflight_se3_tpu.sim.external_controller import ExternalSimController
+        from learningagileflight_se3.geometry.gate import gate_from_width, rotate_y as ry
+        from learningagileflight_se3.sim.external_controller import ExternalSimController
 
         model2, params2 = _dnn2_with_params(jax.random.PRNGKey(7))
         gate0 = np.asarray(ry(gate_from_width(jnp.asarray(1.0)), jnp.asarray(0.3)))
@@ -175,7 +175,7 @@ class TestExternalController:
             gate_motion=gate_motion, w_rot=np.pi / 2, solver_cfg=cfg,
         )
         # drive a plain world-frame state forward with the JAX plant
-        from learningagileflight_se3_tpu.dynamics.quadrotor import euler_step
+        from learningagileflight_se3.dynamics.quadrotor import euler_step
 
         state = np.zeros(13)
         state[0:3] = [0.0, -6.0, 0.0]
@@ -197,7 +197,7 @@ class TestExternalController:
             state = np.asarray(euler_step(jnp.asarray(state), jnp.asarray(u), 0.1, p))
 
     def test_euler_rates_identity_at_zero(self):
-        from learningagileflight_se3_tpu.sim.external_controller import euler_rates_to_body
+        from learningagileflight_se3.sim.external_controller import euler_rates_to_body
 
         out = euler_rates_to_body([0.1, -0.2, 0.3], [0.0, 0.0, 0.0])
         np.testing.assert_allclose(out, [0.1, -0.2, 0.3], atol=1e-12)
@@ -205,7 +205,7 @@ class TestExternalController:
 
 class TestPlotting:
     def test_plots_and_positions(self, tmp_path):
-        from learningagileflight_se3_tpu.sim import plotting
+        from learningagileflight_se3.sim import plotting
 
         T = 20
         states = np.zeros((T, 13))
@@ -226,8 +226,8 @@ class TestGateEstimator:
         rate from pose observations alone, across atan pitch wraps — the
         capability the reference's dead `kalman` (quad_moving.py:8-27) was
         meant to provide."""
-        from learningagileflight_se3_tpu.geometry.gate import gate_move
-        from learningagileflight_se3_tpu.sim.estimator import (
+        from learningagileflight_se3.geometry.gate import gate_move
+        from learningagileflight_se3.sim.estimator import (
             estimated_velocity,
             gate_observation,
             kalman_init,

@@ -7,12 +7,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from learningagileflight_se3_tpu.config import CostWeights, QuadParams, SolverConfig
-from learningagileflight_se3_tpu.core.rotations import axis_angle_to_quat, rodrigues_to_quat
-from learningagileflight_se3_tpu.costs.gate_costs import total_trajectory_cost
-from learningagileflight_se3_tpu.dynamics.quadrotor import rollout
-from learningagileflight_se3_tpu.solver.boxqp import boxqp
-from learningagileflight_se3_tpu.solver.ilqr import make_batched_mpc_solver, make_mpc_solver
+from learningagileflight_se3.config import CostWeights, QuadParams, SolverConfig
+from learningagileflight_se3.core.rotations import axis_angle_to_quat, rodrigues_to_quat
+from learningagileflight_se3.costs.gate_costs import total_trajectory_cost
+from learningagileflight_se3.dynamics.quadrotor import rollout
+from learningagileflight_se3.solver.boxqp import boxqp
+from learningagileflight_se3.solver.ilqr import make_batched_mpc_solver, make_mpc_solver
 
 PARAMS = QuadParams()
 WEIGHTS = CostWeights()
@@ -123,61 +123,10 @@ class TestSolverVsOracle:
         )
 
 
-class TestBatchedPallasSolver:
-    def test_pallas_path_matches_xla(self, rng):
-        """The natively-batched Pallas solver (solver/ilqr_batched.py) must
-        agree with the vmapped reference path on converged problems —
-        interpret mode stands in for the TPU kernel on CPU."""
-        from learningagileflight_se3_tpu.solver.ilqr_batched import (
-            make_batched_mpc_solver_pallas,
-        )
-
-        cfg = SolverConfig(horizon=6, max_iters=12)
-        B = 128  # one lane tile
-        x0 = np.zeros((B, 13))
-        x0[:, 0:3] = rng.uniform(-0.5, 0.5, size=(B, 3)) + [0, -3, 0]
-        x0[:, 6] = 1.0
-        u_last = np.zeros((B, 4))
-        goal = rng.uniform(-0.5, 0.5, size=(B, 3)) + [0, 3, 0]
-        tra_pos = rng.uniform(-0.2, 0.2, size=(B, 3))
-        tra_ang = rng.normal(size=(B, 3)) * 0.1
-        t = np.full(B, 0.3)
-
-        args = [jnp.asarray(v) for v in (x0, u_last, goal, tra_pos, tra_ang, t)]
-        psolve = jax.jit(
-            make_batched_mpc_solver_pallas(PARAMS, WEIGHTS, cfg, interpret=True)
-        )
-        xsolve = jax.jit(make_batched_mpc_solver(PARAMS, WEIGHTS, cfg))
-        ps = psolve(*args)
-        xs = xsolve(*args)
-        # identical iteration-for-iteration semantics; on lanes still at the
-        # iteration cap, kernel-vs-XLA fp reassociation can amplify (same
-        # caveat as TestBatchedSolver), so controls are compared tightly on
-        # the overwhelming majority and costs everywhere
-        np.testing.assert_array_equal(
-            np.asarray(ps.iterations), np.asarray(xs.iterations)
-        )
-        rel = np.abs(np.asarray(ps.cost) - np.asarray(xs.cost)) / np.maximum(
-            np.abs(np.asarray(xs.cost)), 1.0
-        )
-        frac_cost_tight = float((rel < 5e-5).mean())
-        assert frac_cost_tight >= 0.97, (
-            f"only {frac_cost_tight:.2%} lanes cost-agree (<5e-5): {rel.max()}"
-        )
-        assert rel.max() < 1e-2, f"cost diverged beyond 1%: {rel.max()}"
-        dU = np.abs(
-            np.asarray(ps.control_traj) - np.asarray(xs.control_traj)
-        ).max(axis=(1, 2))
-        frac_tight = float((dU < 1e-6).mean())
-        assert frac_tight >= 0.95, f"only {frac_tight:.2%} lanes agree (<1e-6)"
-
-
 class TestBatchedSolver:
     def test_tile_pad_row0_equals_batch1(self, rng):
-        """Deployment pads single queries to an 8-wide tile (TPU batch-1
-        layout pathology, sim/external_controller.py TILE=8;
-        benchmarks/bench_latency.py); row 0 of the padded solve must be
-        the batch-1 answer (VERDICT r1 weak #7 regression guard).  Equality
+        """Lanes are independent: row 0 of an 8-wide batch of copies of one
+        query is the batch-1 answer (VERDICT r1 weak #7 regression guard).  Equality
         is asserted in the converged regime: different batch shapes change
         XLA's fp reassociation, which chaotic unconverged iterates amplify."""
         cfg = SolverConfig(horizon=10, max_iters=80)
@@ -309,8 +258,7 @@ class TestExitStatus:
         x0, u_last, goal, tra_pos, tra_ang, t = canonical_scenario()
         B = 8
         cfg = SolverConfig(horizon=20, max_iters=60, tol=1e-9, gtol=1e-7)
-        solve = jax.jit(make_batched_mpc_solver(PARAMS, WEIGHTS, cfg,
-                                                backend="xla"))
+        solve = jax.jit(make_batched_mpc_solver(PARAMS, WEIGHTS, cfg))
         jit = np.tile
         sol = solve(
             jit(x0, (B, 1)) + 0.01 * rng.normal(size=(B, 13)),

@@ -9,15 +9,15 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from learningagileflight_se3_tpu.config import (
+from learningagileflight_se3.config import (
     CostWeights,
     QuadParams,
     RewardConfig,
     SamplerConfig,
     SolverConfig,
 )
-from learningagileflight_se3_tpu.models.mlp import make_dnn1, make_dnn2, surrogate_inner_loss
-from learningagileflight_se3_tpu.models.sampler import (
+from learningagileflight_se3.models.mlp import make_dnn1, make_dnn2, surrogate_inner_loss
+from learningagileflight_se3.models.sampler import (
     pretrain_label,
     sample_general_scenario,
     sample_random_gate,
@@ -25,13 +25,13 @@ from learningagileflight_se3_tpu.models.sampler import (
     sample_scenarios,
     scenario_to_problem,
 )
-from learningagileflight_se3_tpu.parallel.mesh import make_mesh, replicate, shard_batch
-from learningagileflight_se3_tpu.train.imitation import (
+from learningagileflight_se3.parallel.mesh import make_mesh, replicate, shard_batch
+from learningagileflight_se3.train.imitation import (
     make_imitation_collect,
     make_imitation_train_step,
 )
-from learningagileflight_se3_tpu.train.pretrain import make_pretrain_step
-from learningagileflight_se3_tpu.train.rl import make_rl_train_step
+from learningagileflight_se3.train.pretrain import make_pretrain_step
+from learningagileflight_se3.train.rl import make_rl_train_step
 
 TINY = SolverConfig(horizon=6, max_iters=8)
 PQ, CW, RC, SC = QuadParams(), CostWeights(), RewardConfig(), SamplerConfig()
@@ -227,7 +227,7 @@ class TestCheckpointResume:
         optimizer moments and the per-epoch sampling stream survive the
         restart (the reference cannot do this: whole-model pickles only,
         SURVEY.md section 5)."""
-        from learningagileflight_se3_tpu.train.rl import run_rl_training
+        from learningagileflight_se3.train.rl import run_rl_training
 
         model = make_dnn1()
         params0 = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 9)))
@@ -254,7 +254,7 @@ class TestCheckpointResume:
     def test_nonfinite_signal_is_masked(self):
         """A scenario whose learning signal goes non-finite must not poison
         the batch gradient (failure-detection gap of the reference)."""
-        from learningagileflight_se3_tpu.train.rl import make_rl_train_step
+        from learningagileflight_se3.train.rl import make_rl_train_step
 
         model = make_dnn1()
         params = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 9)))
@@ -344,7 +344,7 @@ class TestBatchedFDSignal:
         """make_fd_gradient_batched must equal vmap(make_fd_gradient)
         exactly (same solves, different batching) — the RL step's
         throughput path may not change the learning signal."""
-        from learningagileflight_se3_tpu.policy import (
+        from learningagileflight_se3.policy import (
             make_fd_gradient,
             make_fd_gradient_batched,
         )
@@ -373,7 +373,7 @@ class TestBatchedFDSignal:
         vmap(make_analytic_gradient): same forward solves (the batched XLA
         backend is the vmapped single solver on CPU) and the same
         implicit-function VJP kernel."""
-        from learningagileflight_se3_tpu.policy import (
+        from learningagileflight_se3.policy import (
             make_analytic_gradient,
             make_analytic_gradient_batched,
         )

@@ -8,17 +8,17 @@ import os
 import numpy as np
 import jax
 import jax.numpy as jnp
-from learningagileflight_se3_tpu.config import QuadParams
-from learningagileflight_se3_tpu.models.mlp import make_dnn2
-from learningagileflight_se3_tpu.sim.external_controller import euler_rates_to_body
-from learningagileflight_se3_tpu.sim.validation_env import (
+from learningagileflight_se3.config import QuadParams
+from learningagileflight_se3.models.mlp import make_dnn2
+from learningagileflight_se3.sim.external_controller import euler_rates_to_body
+from learningagileflight_se3.sim.validation_env import (
     ValidationEnv,
     ValidationEnvConfig,
     body_rates_to_euler_rates,
     quat_to_rpy,
     rpy_to_quat,
 )
-from learningagileflight_se3_tpu.sim.validation_sim import (
+from learningagileflight_se3.sim.validation_sim import (
     SimLogger,
     ValidationSimConfig,
     run_validation_sim,
